@@ -1,7 +1,7 @@
 """Inverse rendering demo (BASELINE config 5, scaled to the hardware at
 hand): recover material albedos and refine vertex positions of a dragon
 proxy from rendered target views, with rays + targets sharded over the
-device mesh and gradients psum-reduced over ICI.
+device mesh and gradients psum-reduced over the device interconnect.
 
 Run:  python examples/inverse_render.py [--views 4] [--steps 60]
 """
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 
@@ -18,16 +19,16 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from atray_tpu.accel.wide import make_accel
-from atray_tpu.config import KDTreeConfig
-from atray_tpu.core.camera import camera_rays, look_at_camera
-from atray_tpu.dist.mesh import make_device_mesh, trace_sharded
-from atray_tpu.dist.train import make_train_step, run_training
-from atray_tpu.scene import build_scene, procedural
-from atray_tpu.scene.data import SceneParams, make_materials
-from atray_tpu.scene.transforms import translate
+from atray.accel.bvh import build_bvh
+from atray.config import KDTreeConfig
+from atray.core.camera import camera_rays, look_at_camera
+from atray.dist.mesh import make_device_mesh, trace_sharded
+from atray.dist.train import make_train_step, run_training
+from atray.scene import build_scene, procedural
+from atray.scene.data import SceneParams, make_materials
+from atray.scene.transforms import translate
 
 
 def build_problem(views: int, res: int, tris: int):
@@ -39,8 +40,7 @@ def build_problem(views: int, res: int, tris: int):
         procedural.dragon_proxy(target_tris=tris, material=1), (0, 0, -4)
     )
     scene = build_scene([body], materials=mats)
-    accel = make_accel(scene.mesh.vertices, scene.mesh.faces,
-                       KDTreeConfig(leaf_size=16))
+    accel = build_bvh(scene.mesh.vertices, scene.mesh.faces, KDTreeConfig())
 
     # one camera orbit -> `views` viewpoints; rays of ALL views concatenated
     # and sharded together over the mesh
@@ -103,7 +103,7 @@ def main(argv=None) -> int:
          "frozen": optax.set_to_zero()},
         labels,
     )
-    # refit=True: leaf records + boxes recomputed from the live vertices
+    # refit=True: leaf triangles + boxes recomputed from the live vertices
     # on-device each step, so the traversal tracks the moving geometry
     step = jax.jit(make_train_step(scene, args.bounces, opt, mesh,
                                    accel=accel, refit=True))

@@ -1,35 +1,38 @@
 """End-to-end demo: build a scene, render a beauty frame + AOV films.
 
-Run from the repo root (CPU or TPU; on TPU the first compile takes
-~30-60 s):
+Run from the repo root (CPU or GPU):
 
     python examples/render_demo.py [--res 640x360] [--spp 8] [--out demo]
 
 Produces ``<out>.png`` (beauty, sRGB) plus ``<out>_depth/normal/albedo/
 emission.png`` AOV films. This is the canonical library-surface flow the
 reference drives from its app loop (Source/engine/app.cpp): scene -> accel
--> camera -> render -> image, here through the public atray_tpu API.
+-> camera -> render -> image, here through the public atray API.
 """
 import argparse
+import os
+import sys
 import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from atray_tpu.accel.shaded import build_shaded_accel
-from atray_tpu.config import RenderSettings
-from atray_tpu.core.camera import look_at_camera
-from atray_tpu.render import (
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from atray.accel.bvh import build_bvh
+from atray.config import RenderSettings
+from atray.core.camera import look_at_camera
+from atray.render import (
     aov_preview_films,
     render,
     render_aovs,
     save_png,
 )
-from atray_tpu.render.film import linear_to_srgb  # noqa: F401 (see --srgb)
-from atray_tpu.scene import build_scene, procedural
-from atray_tpu.scene.data import Planes, Spheres, make_materials
-from atray_tpu.scene.transforms import translate
+from atray.render.film import linear_to_srgb  # noqa: F401 (see --srgb)
+from atray.scene import build_scene, procedural
+from atray.scene.data import Planes, Spheres, make_materials
+from atray.scene.transforms import translate
 
 
 def main() -> None:
@@ -64,7 +67,7 @@ def main() -> None:
         material_id=jnp.asarray([1], jnp.int32),
     )
     scene = build_scene([mesh], spheres=spheres, planes=planes, materials=mats)
-    accel = build_shaded_accel(scene)
+    accel = build_bvh(scene.mesh.vertices, scene.mesh.faces)
     cam = look_at_camera((0.0, 0.8, 1.2), (0.0, 0.0, -4.0),
                          h_fov=0.9, aspect=w / h)
     settings = RenderSettings(

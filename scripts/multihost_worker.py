@@ -1,9 +1,8 @@
 """Worker for the 2-process multi-host test (tests/test_multihost.py).
 
 Each process: 4 virtual CPU devices, jax.distributed over a localhost
-coordinator — the collective legs between the two processes are the DCN
-plane of SURVEY.md §5.8, carried by gRPC instead of a pod fabric but
-exercising the same multi-controller code paths (global mesh, global
+coordinator — the collective legs between the two processes are the
+cross-host plane of SURVEY.md §5.8, carried by gRPC but exercising the same multi-controller code paths (global mesh, global
 arrays, cross-process psum, film assembly).
 
 Usage: multihost_worker.py <coordinator> <num_procs> <pid>
@@ -30,14 +29,14 @@ from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 def main() -> None:
     coord, nproc, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 
-    # initialize the multi-process runtime BEFORE importing atray_tpu:
+    # initialize the multi-process runtime BEFORE importing atray:
     # package import materializes module-level jnp constants, which
     # initializes the XLA backend and closes the distributed-init window
     jax.distributed.initialize(
         coordinator_address=coord, num_processes=nproc, process_id=pid
     )
 
-    from atray_tpu.dist.multihost import (
+    from atray.dist.multihost import (
         assemble_film,
         global_ray_mesh,
         host_local_slice,
@@ -76,12 +75,12 @@ def main() -> None:
 
     # a real multi-process sharded render: global ray array in, film out,
     # assembled identically on every host and equal to the local render
-    from atray_tpu.config import RenderSettings
-    from atray_tpu.core.camera import camera_rays, look_at_camera
-    from atray_tpu.render.wavefront import to_tile_order, trace_radiance
-    from atray_tpu.scene import build_scene, procedural
-    from atray_tpu.scene.data import make_materials
-    from atray_tpu.scene.transforms import translate
+    from atray.config import RenderSettings
+    from atray.core.camera import camera_rays, look_at_camera
+    from atray.render.wavefront import to_tile_order, trace_radiance
+    from atray.scene import build_scene, procedural
+    from atray.scene.data import make_materials
+    from atray.scene.transforms import translate
 
     mats = make_materials([
         ((0.3, 0.4, 0.6), (0.0, 0.0, 0.0), 0.0),

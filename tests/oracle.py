@@ -4,7 +4,7 @@ Plays the role the reference's brute-force ``#else`` path plays for its KD
 tree (renderer.cpp:58-81, SURVEY.md §4): an independent implementation the
 device renderer must match ``allclose``. Pure numpy (no JAX), brute force
 over all primitives, same shading conventions as
-atray_tpu/render/wavefront.py (documented there), consuming explicit
+atray/render/wavefront.py (documented there), consuming explicit
 pre-drawn uniforms so stochastic paths are bit-comparable.
 
 Gradient convention: ``finite_diff_grad`` below differentiates the oracle

@@ -9,13 +9,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from atray_tpu.accel.bvh import build_bvh
-from atray_tpu.core.camera import camera_rays, look_at_camera
-from atray_tpu.render.aov import aov_preview_films, render_aovs
-from atray_tpu.render.wavefront import nearest_hit_ids
-from atray_tpu.scene import build_scene, procedural
-from atray_tpu.scene.data import Planes, Spheres, make_materials
-from atray_tpu.scene.transforms import translate
+from atray.accel.bvh import build_bvh
+from atray.core.camera import camera_rays, look_at_camera
+from atray.render.aov import aov_preview_films, render_aovs
+from atray.render.wavefront import nearest_hit_ids
+from atray.scene import build_scene, procedural
+from atray.scene.data import Planes, Spheres, make_materials
+from atray.scene.transforms import translate
 
 MATS = make_materials([
     ((0.35, 0.45, 0.65), (0.0, 0.0, 0.0), 0.0),   # 0: skybox

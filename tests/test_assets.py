@@ -15,12 +15,12 @@ import numpy as np
 import pytest
 
 import oracle
-from atray_tpu.config import KDTreeConfig, RenderSettings
-from atray_tpu.core.camera import camera_rays, look_at_camera
-from atray_tpu.render.wavefront import draw_bounce_uniforms, render
-from atray_tpu.scene import build_scene, load_obj
-from atray_tpu.scene.data import make_materials
-from atray_tpu.scene.transforms import get_aabb, scale_to, translate_to
+from atray.config import KDTreeConfig, RenderSettings
+from atray.core.camera import camera_rays, look_at_camera
+from atray.render.wavefront import draw_bounce_uniforms, render
+from atray.scene import build_scene, load_obj
+from atray.scene.data import make_materials
+from atray.scene.transforms import get_aabb, scale_to, translate_to
 
 ASSETS = os.path.join(os.path.dirname(__file__), "..", "assets")
 
@@ -56,7 +56,7 @@ def test_reference_assets_load(name, tris, verts):
 def test_native_parser_matches_python_on_real_assets(name):
     path = _asset(name)
     py = load_obj(path, backend="python")
-    from atray_tpu.native import parse_obj_native
+    from atray.native import parse_obj_native
 
     nat = parse_obj_native(path)
     if nat is None:
@@ -92,15 +92,18 @@ def _render_config(w=40, h=30, spp=1, bounces=2):
     return cam, settings, uni
 
 
-def test_monkey_oracle_parity_wide_accel():
-    """Full pipeline on the reference's own Monkey geometry: Pallas
-    (interpret on CPU) wide-BVH render == brute-force numpy oracle."""
-    from atray_tpu.accel.wide import make_accel
+@pytest.mark.parametrize("leaf_size", [4, 16])
+def test_monkey_oracle_parity_bvh(leaf_size):
+    """Full pipeline on the reference's own Monkey geometry: the per-ray
+    hit kernel (interpret on CPU) over the BVH == brute-force numpy
+    oracle, at the default and a wide leaf."""
+    from atray.accel.bvh import build_bvh
 
     scene = _monkey_scene()
     cam, settings, uni = _render_config()
-    accel = make_accel(
-        scene.mesh.vertices, scene.mesh.faces, KDTreeConfig(leaf_size=16)
+    accel = build_bvh(
+        scene.mesh.vertices, scene.mesh.faces,
+        KDTreeConfig(leaf_size=leaf_size),
     )
     film_dev = np.asarray(
         render(scene, cam, settings, jax.random.PRNGKey(0),
@@ -117,39 +120,16 @@ def test_monkey_oracle_parity_wide_accel():
     assert film_dev.std() > 0.01  # the monkey is actually in frame
 
 
-def test_monkey_oracle_parity_shaded_accel():
-    """Same geometry through the FUSED gather-free kernel path."""
-    from atray_tpu.accel.shaded import build_shaded_accel
-
-    scene = _monkey_scene()
-    cam, settings, uni = _render_config()
-    accel = build_shaded_accel(scene, KDTreeConfig(leaf_size=16))
-    film_dev = np.asarray(
-        render(scene, cam, settings, jax.random.PRNGKey(0),
-               accel=accel, uniforms=uni)
-    )
-    w, h = settings.resolution
-    orig, dirn = camera_rays(cam, w, h, settings.samples_per_pixel)
-    film_ref = oracle.render_film(
-        scene, np.asarray(orig), np.asarray(dirn),
-        settings.bounce_limit, np.asarray(uni),
-        settings.samples_per_pixel, h, w,
-    )
-    np.testing.assert_allclose(film_dev, film_ref, atol=2e-5)
-
-
 def test_deer_accel_matches_bruteforce():
     """Deer.obj: accel traversal == brute-force device render (the
     reference's own USE_KD_TREE A/B correctness trick, renderer.h:8)."""
-    from atray_tpu.accel.wide import make_accel
+    from atray.accel.bvh import build_bvh
 
     mesh = load_obj(_asset("Deer.obj"), default_material=1)
     mesh = translate_to(scale_to(mesh, 2.5), (0.0, 0.0, -4.0))
     scene = build_scene([mesh], materials=MATS)
     cam, settings, uni = _render_config(w=32, h=24, bounces=2)
-    accel = make_accel(
-        scene.mesh.vertices, scene.mesh.faces, KDTreeConfig(leaf_size=16)
-    )
+    accel = build_bvh(scene.mesh.vertices, scene.mesh.faces, KDTreeConfig())
     f_acc = np.asarray(
         render(scene, cam, settings, jax.random.PRNGKey(0),
                accel=accel, uniforms=uni)

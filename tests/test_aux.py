@@ -7,18 +7,18 @@ import jax
 import numpy as np
 import pytest
 
-from atray_tpu.config import RenderSettings
-from atray_tpu.core.camera import look_at_camera
-from atray_tpu.render.progressive import (
+from atray.config import RenderSettings
+from atray.core.camera import look_at_camera
+from atray.render.progressive import (
     FilmState,
     load_checkpoint,
     render_progressive,
     save_checkpoint,
 )
-from atray_tpu.scene import build_scene, procedural
-from atray_tpu.scene.data import make_materials
-from atray_tpu.scene.transforms import translate
-from atray_tpu.utils.profiling import Phase, metrics_json, phase_report, reset_phases
+from atray.scene import build_scene, procedural
+from atray.scene.data import make_materials
+from atray.scene.transforms import translate
+from atray.utils.profiling import Phase, metrics_json, phase_report, reset_phases
 
 
 def _scene():
@@ -93,7 +93,7 @@ class TestProgressive:
 
 class TestMultihost:
     def test_single_process_helpers(self):
-        from atray_tpu.dist.multihost import (
+        from atray.dist.multihost import (
             assemble_film,
             global_ray_mesh,
             host_local_slice,
@@ -152,7 +152,7 @@ num_devices = 8
 """
         p = tmp_path / "scene.toml"
         p.write_text(toml)
-        from atray_tpu.cli import load_scene_file
+        from atray.cli import load_scene_file
 
         scene, camera, settings, accel_cfg, mesh_cfg = load_scene_file(str(p))
         assert settings.resolution == (32, 24)
@@ -192,7 +192,7 @@ translate_to = [0.0, 0.0, -4.0]
         sp = tmp_path / "scene.toml"
         sp.write_text(toml)
         out = tmp_path / "img.png"
-        from atray_tpu.cli import main
+        from atray.cli import main
 
         rc = main(["render", str(sp), "-o", str(out)])
         assert rc == 0
@@ -223,7 +223,7 @@ translate_to = [0.0, 0.0, -4.0]
         sp.write_text(toml)
         out = tmp_path / "img_tl.png"
         ref = tmp_path / "img_ref.png"
-        from atray_tpu.cli import main
+        from atray.cli import main
 
         assert main(["render", str(sp), "-o", str(out), "--treelet"]) == 0
         assert main(["render", str(sp), "-o", str(ref)]) == 0
@@ -233,12 +233,12 @@ translate_to = [0.0, 0.0, -4.0]
 
 class TestDebugViz:
     def test_cost_heatmap_and_boxes(self, tmp_path):
-        from atray_tpu.accel.bvh import build_bvh
-        from atray_tpu.config import KDTreeConfig
-        from atray_tpu.core.camera import look_at_camera
-        from atray_tpu.scene.transforms import translate
-        from atray_tpu.scene import procedural
-        from atray_tpu.utils.debugviz import bvh_level_boxes, save_cost_heatmap
+        from atray.accel.bvh import build_bvh
+        from atray.config import KDTreeConfig
+        from atray.core.camera import look_at_camera
+        from atray.scene.transforms import translate
+        from atray.scene import procedural
+        from atray.utils.debugviz import bvh_level_boxes, save_cost_heatmap
 
         mesh = translate(procedural.uv_sphere(rows=10, cols=10, material=1),
                          (0, 0, -4))
@@ -255,7 +255,7 @@ class TestDebugViz:
 
 class TestBMP:
     def test_bmp_roundtrip_header(self, tmp_path):
-        from atray_tpu.render.film import save_bmp
+        from atray.render.film import save_bmp
 
         film = np.random.default_rng(0).uniform(0, 1, (7, 5, 3)).astype(np.float32)
         p = save_bmp(str(tmp_path / "img.bmp"), film)
@@ -275,9 +275,9 @@ class TestTrainCheckpoint:
     def _problem(self):
         import jax.numpy as jnp
 
-        from atray_tpu.accel.bvh import build_bvh
-        from atray_tpu.config import KDTreeConfig
-        from atray_tpu.core.camera import camera_rays
+        from atray.accel.bvh import build_bvh
+        from atray.config import KDTreeConfig
+        from atray.core.camera import camera_rays
 
         mats = make_materials([
             ((0.3, 0.4, 0.6), (0.0, 0.0, 0.0), 0.0),
@@ -295,7 +295,7 @@ class TestTrainCheckpoint:
     def test_save_load_roundtrip(self, tmp_path):
         import optax
 
-        from atray_tpu.dist.train import load_train_state, save_train_state
+        from atray.dist.train import load_train_state, save_train_state
 
         scene, _, _, _, _ = self._problem()
         p = scene.params()
@@ -322,8 +322,8 @@ class TestTrainCheckpoint:
         # step) counters, so the resumed stream continues the original).
         import optax
 
-        from atray_tpu.dist.mesh import make_device_mesh
-        from atray_tpu.dist.train import make_train_step, run_training
+        from atray.dist.mesh import make_device_mesh
+        from atray.dist.train import make_train_step, run_training
 
         scene, bvh, orig, dirn, target = self._problem()
         dmesh = make_device_mesh()
@@ -362,8 +362,8 @@ class TestTelemetry:
         # tail table must cover every chunk.
         import jax.numpy as jnp
 
-        from atray_tpu.render.telemetry import render_telemetry, tail_report
-        from atray_tpu.render.wavefront import render
+        from atray.render.telemetry import render_telemetry, tail_report
+        from atray.render.wavefront import render
 
         mats = make_materials([
             ((0.3, 0.4, 0.6), (0.0, 0.0, 0.0), 0.0),
@@ -386,8 +386,8 @@ class TestTelemetry:
         assert "imbal" in text and "chunk wall" in text
 
     def test_sharded_stats_expose_per_shard_rays(self, devices):
-        from atray_tpu.dist.mesh import make_device_mesh
-        from atray_tpu.render.wavefront import render
+        from atray.dist.mesh import make_device_mesh
+        from atray.render.wavefront import render
 
         mats = make_materials([
             ((0.3, 0.4, 0.6), (0.0, 0.0, 0.0), 0.0),
@@ -416,12 +416,12 @@ def test_progress_callback_ticks_per_chunk():
 
     import jax
 
-    from atray_tpu.config import RenderSettings
-    from atray_tpu.core.camera import look_at_camera
-    from atray_tpu.render.wavefront import render
-    from atray_tpu.scene import build_scene, procedural
-    from atray_tpu.scene.data import make_materials
-    from atray_tpu.scene.transforms import translate
+    from atray.config import RenderSettings
+    from atray.core.camera import look_at_camera
+    from atray.render.wavefront import render
+    from atray.scene import build_scene, procedural
+    from atray.scene.data import make_materials
+    from atray.scene.transforms import translate
 
     mats = make_materials([
         ((0.3, 0.4, 0.6), (0, 0, 0), 0.0),
@@ -448,7 +448,7 @@ def test_cli_parses_quad_area_light_scene():
     # materials (round-5 CLI authoring for NEE area lights)
     import os
 
-    from atray_tpu.cli import load_scene_file
+    from atray.cli import load_scene_file
 
     path = os.path.join(os.path.dirname(__file__), "..", "examples",
                         "arealight.toml")
@@ -465,7 +465,7 @@ def test_cli_parses_quad_area_light_scene():
 def test_cli_parses_checker_texture(tmp_path):
     import numpy as np
 
-    from atray_tpu.cli import load_scene_file
+    from atray.cli import load_scene_file
 
     toml = tmp_path / "tex.toml"
     toml.write_text(

@@ -4,7 +4,7 @@ renderer.cpp:314-343)."""
 import jax
 import numpy as np
 
-from atray_tpu.core.camera import camera_rays, look_at_camera, make_camera
+from atray.core.camera import camera_rays, look_at_camera, make_camera
 
 
 def test_basis_right_handed():

@@ -17,13 +17,13 @@ import jax
 import numpy as np
 import pytest
 
-from atray_tpu.config import KDTreeConfig, RenderSettings
-from atray_tpu.core.camera import look_at_camera
-from atray_tpu.render.wavefront import render
-from atray_tpu.scene import build_scene, load_obj, procedural
-from atray_tpu.scene.data import make_materials
-from atray_tpu.scene.objio import save_obj
-from atray_tpu.scene.transforms import scale_to, translate_to
+from atray.config import KDTreeConfig, RenderSettings
+from atray.core.camera import look_at_camera
+from atray.render.wavefront import render
+from atray.scene import build_scene, load_obj, procedural
+from atray.scene.data import make_materials
+from atray.scene.objio import save_obj
+from atray.scene.transforms import scale_to, translate_to
 
 TARGET = 139_000
 
@@ -70,8 +70,8 @@ def test_dragon_file_parser_parity(dragon_file):
 def test_dragon_file_builder_parity(dragon_file):
     # native vs numpy BVH builder on a >=100k-tri parsed FILE mesh:
     # identical split decisions -> identical flattened trees
-    from atray_tpu.accel.bvh import build_bvh, validate_bvh
-    from atray_tpu.native import build_bvh_native
+    from atray.accel.bvh import build_bvh, validate_bvh
+    from atray.native import build_bvh_native
 
     _, path = dragon_file
     m = load_obj(path, backend="python")
@@ -110,7 +110,7 @@ def test_dragon_file_builder_parity(dragon_file):
 def test_dragon_file_renders_like_memory_mesh(dragon_file):
     # same placement applied to the file-loaded and the in-memory mesh
     # must give the SAME film bits (geometry equality end to end)
-    from atray_tpu.accel.bvh import build_bvh
+    from atray.accel.bvh import build_bvh
 
     mesh, path = dragon_file
     mats = make_materials([

@@ -18,12 +18,12 @@ import numpy as np
 import pytest
 
 import oracle
-from atray_tpu.config import RenderSettings
-from atray_tpu.core.camera import camera_rays, look_at_camera
-from atray_tpu.render.wavefront import draw_bounce_uniforms, render, trace_radiance
-from atray_tpu.scene import build_scene, procedural
-from atray_tpu.scene.data import Planes, make_materials
-from atray_tpu.scene.transforms import translate
+from atray.config import RenderSettings
+from atray.core.camera import camera_rays, look_at_camera
+from atray.render.wavefront import draw_bounce_uniforms, render, trace_radiance
+from atray.scene import build_scene, procedural
+from atray.scene.data import Planes, make_materials
+from atray.scene.transforms import translate
 
 MATS = make_materials([
     ((0.35, 0.45, 0.65), (0.0, 0.0, 0.0), 0.0),
@@ -114,7 +114,7 @@ class TestGeometryGradients:
         # One big triangle in front of the camera: every hit is interior,
         # so no FD step flips visibility -> detached-visibility grads match
         # plain finite differences.
-        from atray_tpu.scene.data import TriMesh, _f32, _i32
+        from atray.scene.data import TriMesh, _f32, _i32
 
         tri = TriMesh(
             vertices=_f32([[-2.0, -2.0, -3.0], [2.0, -2.0, -3.0], [0.0, 2.0, -3.0]]),

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from atray_tpu.core import intersect as ix
+from atray.core import intersect as ix
 
 
 def _arr(*rows):

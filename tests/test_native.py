@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from atray_tpu.native import available
+from atray.native import available
 
 pytestmark = pytest.mark.skipif(
     not available(), reason="native toolchain unavailable"
@@ -17,10 +17,10 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_bvh_builder_traversal_parity(rng):
-    from atray_tpu.accel.bvh import build_bvh, validate_bvh
-    from atray_tpu.accel.traverse import bvh_first_hit
-    from atray_tpu.config import KDTreeConfig
-    from atray_tpu.scene import procedural
+    from atray.accel.bvh import build_bvh, validate_bvh
+    from atray.accel.traverse import bvh_first_hit
+    from atray.config import KDTreeConfig
+    from atray.scene import procedural
 
     mesh = procedural.dragon_proxy(target_tris=3000, smooth=False)
     cfg = KDTreeConfig(leaf_size=8)
@@ -40,8 +40,8 @@ def test_bvh_builder_traversal_parity(rng):
 
 
 def test_obj_parser_matches_python(tmp_path):
-    from atray_tpu.scene import procedural, save_obj
-    from atray_tpu.scene.objio import load_obj
+    from atray.scene import procedural, save_obj
+    from atray.scene.objio import load_obj
 
     mesh = procedural.uv_sphere(rows=10, cols=10, smooth=True)
     p = tmp_path / "m.obj"
@@ -61,7 +61,7 @@ def test_obj_parser_matches_python(tmp_path):
 
 
 def test_obj_parser_face_forms(tmp_path):
-    from atray_tpu.scene.objio import load_obj
+    from atray.scene.objio import load_obj
 
     src = """
 v 0.0 0.0 0.0

@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from atray_tpu.scene import load_obj, save_obj, procedural
+from atray.scene import load_obj, save_obj, procedural
 
 OBJ_ALL_FORMS = """
 # comment line

@@ -1,25 +1,23 @@
-"""Pallas kernel tests (interpret mode on CPU) vs the jnp traversal oracle
-(the A/B pattern of SURVEY.md §4), plus ray-ordering round trips."""
+"""Renders through the per-ray hit kernel (interpret mode on CPU) vs brute
+force (the A/B pattern of SURVEY.md §4), plus ray-ordering round trips."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from atray_tpu.accel.bvh import build_bvh
-from atray_tpu.accel.traverse import bvh_first_hit
-from atray_tpu.config import KDTreeConfig, RenderSettings
-from atray_tpu.core.camera import camera_rays, look_at_camera
-from atray_tpu.kernels.frustum_pallas import frustum_first_hit
-from atray_tpu.kernels.traverse_pallas import pack_bvh, pallas_first_hit
-from atray_tpu.render.wavefront import (
+from atray.accel.bvh import build_bvh
+from atray.accel.traverse import bvh_first_hit
+from atray.config import KDTreeConfig, RenderSettings
+from atray.core.camera import camera_rays, look_at_camera
+from atray.kernels.bvh_hit import first_hit
+from atray.render.wavefront import (
     from_tile_order,
     render,
     to_tile_order,
 )
-from atray_tpu.scene import build_scene, procedural
-from atray_tpu.scene.data import make_materials
-from atray_tpu.scene.transforms import translate
+from atray.scene import build_scene, procedural
+from atray.scene.data import make_materials
+from atray.scene.transforms import translate
 
 
 def _rays(rng, n):
@@ -29,51 +27,14 @@ def _rays(rng, n):
     return orig, jnp.asarray(d, jnp.float32)
 
 
-@pytest.mark.parametrize("leaf_size", [4, 8, 16])
-@pytest.mark.parametrize("kernel", ["packet", "frustum"])
-@pytest.mark.slow
-def test_kernels_match_jnp_traversal(leaf_size, kernel, rng):
-    mesh = procedural.uv_sphere(rows=16, cols=16)
-    bvh = build_bvh(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=leaf_size))
-    pack = pack_bvh(bvh)
-    orig, dirn = _rays(rng, 1500)
-    t1, u1, v1, i1 = bvh_first_hit(bvh, None, orig, dirn)
-    fn = pallas_first_hit if kernel == "packet" else frustum_first_hit
-    t2, u2, v2, i2 = fn(pack, orig, dirn, interpret=True)
-    np.testing.assert_allclose(np.asarray(t2), np.asarray(t1), rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(i2), np.asarray(i1))
-    hit = np.asarray(i1) >= 0
-    np.testing.assert_allclose(
-        np.asarray(u2)[hit], np.asarray(u1)[hit], atol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(v2)[hit], np.asarray(v1)[hit], atol=1e-5
-    )
-
-
-@pytest.mark.slow
-def test_kernels_on_camera_rays(rng):
-    mesh = translate(procedural.uv_sphere(rows=12, cols=12), (0, 0, -4))
-    bvh = build_bvh(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=8))
-    pack = pack_bvh(bvh)
-    cam = look_at_camera((0, 0.4, 0.6), (0, 0, -4), h_fov=0.9, aspect=1.0)
-    orig, dirn = camera_rays(cam, 40, 40, spp=1)
-    t1, _, _, i1 = bvh_first_hit(bvh, None, orig, dirn)
-    t2, _, _, i2 = frustum_first_hit(pack, orig, dirn, interpret=True)
-    np.testing.assert_allclose(np.asarray(t2), np.asarray(t1), rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(i2), np.asarray(i1))
-    assert (np.asarray(i1) >= 0).sum() > 50  # the sphere is actually seen
-
-
 def test_pad_slots_never_hit(rng):
     # leaf_size larger than the triangle count forces pad slots everywhere
     v = jnp.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0]], jnp.float32)
     f = jnp.asarray([[0, 1, 2]], jnp.int32)
     bvh = build_bvh(v, f, KDTreeConfig(leaf_size=8))
-    pack = pack_bvh(bvh)
     orig, dirn = _rays(rng, 1024)
     t1, _, _, i1 = bvh_first_hit(bvh, None, orig, dirn)
-    t2, _, _, i2 = frustum_first_hit(pack, orig, dirn, interpret=True)
+    t2, i2 = first_hit(bvh, orig, dirn)
     np.testing.assert_array_equal(np.asarray(i2), np.asarray(i1))
     assert set(np.unique(np.asarray(i2))) <= {-1, 0}
 
@@ -93,12 +54,11 @@ def test_render_with_pallas_accel_matches_brute():
     mesh = translate(procedural.uv_sphere(rows=10, cols=10, material=1), (0, 0, -4))
     scene = build_scene([mesh], materials=mats)
     bvh = build_bvh(scene.mesh.vertices, scene.mesh.faces, KDTreeConfig(leaf_size=8))
-    pack = pack_bvh(bvh)
     cam = look_at_camera((0, 0.4, 0.5), (0, 0, -4), h_fov=0.8, aspect=1.0)
     s = RenderSettings(resolution=(24, 24), samples_per_pixel=1, bounce_limit=2)
     key = jax.random.PRNGKey(5)
     film_bf = render(scene, cam, s, key, accel=None)
-    film_pl = render(scene, cam, s, key, accel=pack)
+    film_pl = render(scene, cam, s, key, accel=bvh)
     np.testing.assert_allclose(
         np.asarray(film_pl), np.asarray(film_bf), atol=2e-5
     )
@@ -122,50 +82,12 @@ def test_render_chunked_matches_unchunked_shape():
     np.testing.assert_allclose(np.asarray(f2), np.asarray(f1), atol=1e-6)
 
 
-@pytest.mark.slow
-def test_wide_and_persistent_kernels_match_jnp(rng):
-    from atray_tpu.accel.wide import wide_from_mesh
-    from atray_tpu.kernels.persistent_pallas import persistent_first_hit
-    from atray_tpu.kernels.wide_pallas import wide_first_hit
-
-    mesh = procedural.uv_sphere(rows=16, cols=16)
-    bvh = build_bvh(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=8))
-    wb = wide_from_mesh(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=8))
-    orig, dirn = _rays(rng, 1500)
-    t1, _, _, i1 = bvh_first_hit(bvh, None, orig, dirn)
-    for fn in (wide_first_hit, persistent_first_hit):
-        t2, _, _, i2 = fn(wb, orig, dirn, interpret=True)
-        np.testing.assert_allclose(np.asarray(t2), np.asarray(t1), rtol=1e-5)
-        np.testing.assert_array_equal(np.asarray(i2), np.asarray(i1))
-
-
-@pytest.mark.slow
-def test_render_with_hybrid_accel_matches_brute():
-    from atray_tpu.accel.wide import make_accel
-
-    mats = make_materials([
-        ((0.4, 0.5, 0.7), (0.0, 0.0, 0.0), 0.0),
-        ((0.0, 0.0, 0.0), (0.8, 0.6, 0.4), 0.2),
-    ])
-    mesh = translate(procedural.uv_sphere(rows=10, cols=10, material=1), (0, 0, -4))
-    scene = build_scene([mesh], materials=mats)
-    hy = make_accel(scene.mesh.vertices, scene.mesh.faces, KDTreeConfig(leaf_size=8))
-    cam = look_at_camera((0, 0.4, 0.5), (0, 0, -4), h_fov=0.8, aspect=1.0)
-    s = RenderSettings(resolution=(24, 24), samples_per_pixel=1, bounce_limit=3)
-    key = jax.random.PRNGKey(5)
-    film_bf = render(scene, cam, s, key, accel=None)
-    film_hy = render(scene, cam, s, key, accel=hy)
-    np.testing.assert_allclose(
-        np.asarray(film_hy), np.asarray(film_bf), atol=2e-5
-    )
-
-
 def test_sorted_bounces_identical_with_explicit_uniforms():
     # compaction is a pure permutation: with explicit uniforms (permuted
     # alongside the rays) the image must be EXACTLY the unsorted one
     import dataclasses
 
-    from atray_tpu.render.wavefront import draw_bounce_uniforms
+    from atray.render.wavefront import draw_bounce_uniforms
 
     mats = make_materials([
         ((0.4, 0.5, 0.7), (0.0, 0.0, 0.0), 0.0),
@@ -184,25 +106,11 @@ def test_sorted_bounces_identical_with_explicit_uniforms():
     np.testing.assert_allclose(np.asarray(f2), np.asarray(f1), atol=1e-6)
 
 
-def test_wide_exact_matches_jnp(rng):
-    from atray_tpu.accel.wide import wide_from_mesh
-    from atray_tpu.kernels.wide_exact import wide_exact_first_hit
-
-    mesh = procedural.uv_sphere(rows=16, cols=16)
-    bvh = build_bvh(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=8))
-    wb = wide_from_mesh(mesh.vertices, mesh.faces, KDTreeConfig(leaf_size=8))
-    orig, dirn = _rays(rng, 1500)
-    t1, _, _, i1 = bvh_first_hit(bvh, None, orig, dirn)
-    t2, _, _, i2 = wide_exact_first_hit(wb, orig, dirn, interpret=True)
-    np.testing.assert_allclose(np.asarray(t2), np.asarray(t1), rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(i2), np.asarray(i1))
-
-
 def test_rays_cast_counter():
     # parity with the reference's total-rays metric: counts live paths
     # entering each bounce; sky-only scene -> exactly R (all die at bounce 0)
-    from atray_tpu.core.camera import camera_rays
-    from atray_tpu.render.wavefront import trace_radiance
+    from atray.core.camera import camera_rays
+    from atray.render.wavefront import trace_radiance
 
     mats = make_materials([((0.3, 0.4, 0.6), (0, 0, 0), 0.0),
                            ((0, 0, 0), (0.7, 0.7, 0.7), 0.0)])
@@ -225,11 +133,9 @@ def test_rays_cast_counter():
 
 
 def test_fused_shaded_render_matches_standard():
-    # the fused gather-free path must reproduce the standard (gather-based)
-    # image to fp tolerance on a mixed scene
-    from atray_tpu.accel.shaded import build_shaded_accel
-    from atray_tpu.accel.wide import make_accel
-    from atray_tpu.scene.data import Planes, Spheres
+    # the hit kernel + face-table resolve must reproduce the brute-force
+    # image to fp tolerance on a mixed scene (smooth mesh, sphere, plane)
+    from atray.scene.data import Planes, Spheres
 
     mats = make_materials([
         ((0.35, 0.45, 0.65), (0.0, 0.0, 0.0), 0.0),
@@ -252,56 +158,21 @@ def test_fused_shaded_render_matches_standard():
         material_id=np.asarray([3], np.int32),
     )
     scene = build_scene([mesh], spheres=spheres, planes=planes, materials=mats)
-    cfg = KDTreeConfig(leaf_size=8)
-    std = make_accel(scene.mesh.vertices, scene.mesh.faces, cfg)
-    fused = build_shaded_accel(scene, cfg)
+    bvh = build_bvh(scene.mesh.vertices, scene.mesh.faces,
+                    KDTreeConfig(leaf_size=8))
     cam = look_at_camera((0, 0.4, 0.6), (0, 0, -4), h_fov=0.9, aspect=1.0)
     s = RenderSettings(resolution=(24, 24), samples_per_pixel=2, bounce_limit=3)
     key = jax.random.PRNGKey(5)
-    f_std = render(scene, cam, s, key, accel=std)
-    f_fused = render(scene, cam, s, key, accel=fused)
+    f_std = render(scene, cam, s, key, accel=None)
+    f_fused = render(scene, cam, s, key, accel=bvh)
     np.testing.assert_allclose(
         np.asarray(f_fused), np.asarray(f_std), atol=5e-5
     )
 
 
-def test_wide_shade_multipop_matches_single():
-    # multi_pop=4 (4 nodes expanded per vector->scalar sync) must be an
-    # exact permutation-free reimplementation of the K=1 walk
-    from atray_tpu.accel.shaded import build_shaded_accel
-    from atray_tpu.core.camera import camera_rays
-    from atray_tpu.kernels.wide_shade import wide_shade_first_hit
-
-    mats = make_materials([((0.3, 0.4, 0.6), (0, 0, 0), 0.0),
-                           ((0, 0, 0), (0.7, 0.5, 0.3), 0.1)])
-    mesh = translate(
-        procedural.uv_sphere(rows=16, cols=16, material=1, smooth=True),
-        (0, 0, -4),
-    )
-    scene = build_scene([mesh], materials=mats)
-    accel = build_shaded_accel(scene, KDTreeConfig(leaf_size=8))
-    cam = look_at_camera((0, 0.4, 0.6), (0, 0, -4), h_fov=0.9, aspect=1.0)
-    orig, dirn = camera_rays(cam, 48, 48, spp=1)
-    rng = np.random.default_rng(3)
-    perm = rng.permutation(orig.shape[0])  # incoherent mix
-    orig, dirn = orig[perm], dirn[perm]
-    alive = jnp.asarray(rng.uniform(size=(orig.shape[0],)) < 0.8)
-    f1 = wide_shade_first_hit(accel, orig, dirn, alive=alive, interpret=True)
-    f4 = wide_shade_first_hit(
-        accel, orig, dirn, alive=alive, interpret=True, multi_pop=4
-    )
-    for k in ("t", "id", "normal", "mat"):
-        np.testing.assert_array_equal(np.asarray(f1[k]), np.asarray(f4[k]))
-    hits = int(np.sum(np.asarray(f1["id"]) >= 0))
-    assert hits > 50
-
-
 def test_fused_shaded_nee_matches_standard():
-    import dataclasses
-
-    from atray_tpu.accel.shaded import build_shaded_accel
-    from atray_tpu.accel.wide import make_accel
-    from atray_tpu.scene.data import Planes, Spheres
+    # NEE shadow rays take the hit kernel too
+    from atray.scene.data import Planes, Spheres
 
     mats = make_materials([
         ((0.05, 0.05, 0.08), (0.0, 0.0, 0.0), 0.0),
@@ -320,44 +191,14 @@ def test_fused_shaded_nee_matches_standard():
         material_id=np.asarray([1], np.int32),
     )
     scene = build_scene([mesh], spheres=spheres, planes=planes, materials=mats)
-    cfg = KDTreeConfig(leaf_size=8)
-    std = make_accel(scene.mesh.vertices, scene.mesh.faces, cfg)
-    fused = build_shaded_accel(scene, cfg)
+    bvh = build_bvh(scene.mesh.vertices, scene.mesh.faces,
+                    KDTreeConfig(leaf_size=8))
     cam = look_at_camera((0, 0.6, 0.8), (0, 0, -4), h_fov=0.9, aspect=1.0)
     s = RenderSettings(resolution=(20, 20), samples_per_pixel=1,
                        bounce_limit=3, nee=True)
     key = jax.random.PRNGKey(2)
-    f_std = render(scene, cam, s, key, accel=std)
-    f_fused = render(scene, cam, s, key, accel=fused)
+    f_std = render(scene, cam, s, key, accel=None)
+    f_fused = render(scene, cam, s, key, accel=bvh)
     np.testing.assert_allclose(
         np.asarray(f_fused), np.asarray(f_std), atol=5e-5
     )
-
-
-@pytest.mark.slow
-def test_wide_shade_stats_mode():
-    # stats=True must leave all hit outputs bit-identical and report
-    # positive per-pair traversal counters (round-4 instrumentation)
-    from atray_tpu.accel.shaded import build_shaded_accel
-    from atray_tpu.core.camera import camera_rays
-    from atray_tpu.kernels.wide_shade import wide_shade_planes
-
-    mats = make_materials([((0.3, 0.4, 0.6), (0, 0, 0), 0.0),
-                           ((0, 0, 0), (0.7, 0.5, 0.3), 0.1)])
-    mesh = translate(
-        procedural.uv_sphere(rows=12, cols=12, material=1, smooth=True),
-        (0, 0, -4),
-    )
-    scene = build_scene([mesh], materials=mats)
-    accel = build_shaded_accel(scene, KDTreeConfig(leaf_size=8))
-    cam = look_at_camera((0, 0.4, 0.6), (0, 0, -4), h_fov=0.9, aspect=1.0)
-    orig, dirn = camera_rays(cam, 32, 32, spp=1)
-    al = jnp.ones((orig.shape[0],), jnp.float32)
-    args = (accel, orig[:, 0], orig[:, 1], orig[:, 2],
-            dirn[:, 0], dirn[:, 1], dirn[:, 2], al)
-    base = wide_shade_planes(*args, interpret=True, multi_pop=4)
-    st = wide_shade_planes(*args, interpret=True, multi_pop=4, stats=True)
-    for k in ("t", "id", "nx", "ny", "nz", "mat"):
-        np.testing.assert_array_equal(np.asarray(base[k]), np.asarray(st[k]))
-    assert int(np.asarray(st["node_visits"]).max()) > 0
-    assert int(np.asarray(st["leaf_visits"]).max()) > 0

@@ -5,8 +5,8 @@ Assets/ ladder, BASELINE.md)."""
 import numpy as np
 import pytest
 
-from atray_tpu.scene import procedural
-from atray_tpu.scene.transforms import compute_vertex_normals, get_aabb
+from atray.scene import procedural
+from atray.scene.transforms import compute_vertex_normals, get_aabb
 
 
 def _outward_fraction(mesh, center):

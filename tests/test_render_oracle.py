@@ -7,12 +7,12 @@ import numpy as np
 import pytest
 
 import oracle
-from atray_tpu.config import RenderSettings
-from atray_tpu.core.camera import look_at_camera, camera_rays
-from atray_tpu.render.wavefront import draw_bounce_uniforms, render
-from atray_tpu.scene import build_scene, procedural
-from atray_tpu.scene.data import Planes, Spheres, make_materials
-from atray_tpu.scene.transforms import translate
+from atray.config import RenderSettings
+from atray.core.camera import look_at_camera, camera_rays
+from atray.render.wavefront import draw_bounce_uniforms, render
+from atray.scene import build_scene, procedural
+from atray.scene.data import Planes, Spheres, make_materials
+from atray.scene.transforms import translate
 
 
 MATS = make_materials([
@@ -137,7 +137,7 @@ def test_nee_matches_oracle():
         resolution=(w, h), samples_per_pixel=spp, bounce_limit=bounces, nee=True,
     )
     n_rays = spp * h * w
-    from atray_tpu.render.wavefront import draw_bounce_uniforms
+    from atray.render.wavefront import draw_bounce_uniforms
 
     uni = draw_bounce_uniforms(jax.random.PRNGKey(7), bounces, n_rays, channels=6)
     film_dev = render(scene, cam, settings, jax.random.PRNGKey(1), uniforms=uni)
@@ -208,7 +208,7 @@ def _area_light_scene():
         ((0.0, 0.0, 0.0), (0.6, 0.6, 0.6), 0.0),      # floor (plane)
         ((25.0, 22.0, 18.0), (0.0, 0.0, 0.0), 0.0),   # light panel
     ])
-    from atray_tpu.scene.transforms import translate
+    from atray.scene.transforms import translate
 
     cube = translate(procedural.cube(size=1.2, material=1), (0.0, -0.4, -4.0))
     panel = procedural.quad(
@@ -236,7 +236,7 @@ def test_nee_area_light_matches_oracle():
         nee=True,
     )
     n_rays = spp * h * w
-    from atray_tpu.render.wavefront import draw_bounce_uniforms
+    from atray.render.wavefront import draw_bounce_uniforms
 
     uni = draw_bounce_uniforms(jax.random.PRNGKey(9), bounces, n_rays,
                                channels=6)
@@ -301,7 +301,7 @@ def _textured_scene():
     # a UV-mapped quad floor patch with a checker texture (round 5,
     # beyond parity: the reference stores tex coords and never samples
     # them — model.h:13-28)
-    from atray_tpu.scene.data import TriMesh
+    from atray.scene.data import TriMesh
 
     v = np.asarray([[-2.0, -1.0, -2.5], [2.0, -1.0, -2.5],
                     [2.0, -1.0, -6.5], [-2.0, -1.0, -6.5]], np.float32)
@@ -335,17 +335,18 @@ def test_textured_albedo_matches_oracle():
 
 
 def test_textured_albedo_with_accel_matches_brute():
-    # textured scenes keep the fast traversal (nearest_hit_ids on the
-    # shaded accel) but shade through the gather path
-    from atray_tpu.accel.shaded import build_shaded_accel
-    from atray_tpu.config import KDTreeConfig
+    # textured scenes take the hit kernel too; the texture lookup rides
+    # the same face-table resolve
+    from atray.accel.bvh import build_bvh
+    from atray.config import KDTreeConfig
 
     scene = _textured_scene()
     cam = look_at_camera((0.0, 0.5, 1.0), (0.0, 0.0, -4.0), h_fov=0.9,
                          aspect=4 / 3)
     st = RenderSettings(resolution=(48, 36), samples_per_pixel=1,
                         bounce_limit=2, sort_bounces=False)
-    accel = build_shaded_accel(scene, KDTreeConfig(leaf_size=4))
+    accel = build_bvh(scene.mesh.vertices, scene.mesh.faces,
+                      KDTreeConfig(leaf_size=4))
     key = jax.random.PRNGKey(3)
     f_brute = np.asarray(render(scene, cam, st, key))
     f_accel = np.asarray(render(scene, cam, st, key, accel=accel))

@@ -2,6 +2,7 @@
 (SURVEY.md §4 item 4): sharded render correctness, psum'd gradients, and
 the driver dry-run hooks."""
 
+import os
 import sys
 
 import jax
@@ -10,15 +11,17 @@ import numpy as np
 import optax
 import pytest
 
-from atray_tpu.accel.bvh import build_bvh
-from atray_tpu.config import KDTreeConfig, RenderSettings
-from atray_tpu.core.camera import camera_rays, look_at_camera
-from atray_tpu.dist.mesh import make_device_mesh, render_sharded
-from atray_tpu.dist.train import make_loss_and_grad, make_train_step
-from atray_tpu.render.wavefront import render
-from atray_tpu.scene import build_scene, procedural
-from atray_tpu.scene.data import make_materials
-from atray_tpu.scene.transforms import translate
+from atray.accel.bvh import build_bvh
+from atray.config import KDTreeConfig, RenderSettings
+from atray.core.camera import camera_rays, look_at_camera
+from atray.dist.mesh import make_device_mesh, render_sharded
+from atray.dist.train import make_loss_and_grad, make_train_step
+from atray.render.wavefront import render
+from atray.scene import build_scene, procedural
+from atray.scene.data import make_materials
+from atray.scene.transforms import translate
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MATS = make_materials([
     ((0.35, 0.45, 0.65), (0.0, 0.0, 0.0), 0.0),
@@ -51,7 +54,7 @@ def test_sharded_bitexact_with_nee_and_chunking(devices):
     # The unified renderer honors NEE + chunking under shard_map and stays
     # bit-identical to the single-device whole-frame run.
     import jax.numpy as jnp
-    from atray_tpu.scene.data import Spheres
+    from atray.scene.data import Spheres
 
     mesh_body = translate(
         procedural.uv_sphere(rows=8, cols=8, material=1), (0, 0, -4)
@@ -107,7 +110,7 @@ def test_psum_grads_match_local_grads(devices):
     lg = make_loss_and_grad(scene, bounce_limit=2, mesh=mesh, accel=bvh)
     loss_sh, grads_sh = jax.jit(lg)(scene.params(), orig, dirn, target, key)
 
-    from atray_tpu.render.wavefront import trace_radiance
+    from atray.render.wavefront import trace_radiance
 
     def local_loss(p):
         sc = scene.with_params(p)
@@ -136,7 +139,7 @@ def test_train_step_reduces_loss(devices):
     # the weight that multiplies later emission), so train with 2 bounces.
     # Target comes through the SAME sharded trace (same per-shard fold_in
     # streams) so loss at the true params is exactly zero.
-    from atray_tpu.dist.mesh import trace_sharded
+    from atray.dist.mesh import trace_sharded
 
     target = trace_sharded(scene, orig, dirn, 2, key, mesh)
 
@@ -146,7 +149,7 @@ def test_train_step_reduces_loss(devices):
     p0 = scene.params()
     import dataclasses
 
-    from atray_tpu.scene.data import SceneParams
+    from atray.scene.data import SceneParams
 
     p = dataclasses.replace(p0, albedo=p0.albedo * 0.3 + 0.1)
     labels = SceneParams(
@@ -166,7 +169,7 @@ def test_train_step_reduces_loss(devices):
 
 
 def test_graft_entry_single_chip():
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO)
     import __graft_entry__ as ge
 
     fn, args = ge.entry()
@@ -177,7 +180,7 @@ def test_graft_entry_single_chip():
 
 
 def test_graft_dryrun_multichip(devices):
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO)
     import __graft_entry__ as ge
 
     ge.dryrun_multichip(8)

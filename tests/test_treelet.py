@@ -1,16 +1,16 @@
 """Treelet (geometry-sharded) path: ppermute ring over per-device treelets
-(SURVEY.md §5.7 scale-out / §5.8 ICI plan; dist/treelet.py)."""
+(SURVEY.md §5.7 scale-out / §5.8 collective plan; dist/treelet.py)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import PartitionSpec as P
 
-from atray_tpu.config import RenderSettings
-from atray_tpu.core.camera import look_at_camera
-from atray_tpu.core.intersect import first_triangle_hit
-from atray_tpu.dist.mesh import make_device_mesh
-from atray_tpu.dist.treelet import (
+from atray.config import RenderSettings
+from atray.core.camera import look_at_camera
+from atray.core.intersect import first_triangle_hit
+from atray.dist.mesh import make_device_mesh
+from atray.dist.treelet import (
     build_treelet_accels,
     build_treelet_parts,
     build_treelets,
@@ -18,10 +18,10 @@ from atray_tpu.dist.treelet import (
     render_treelet,
     ring_first_hit,
 )
-from atray_tpu.render.wavefront import render
-from atray_tpu.scene import build_scene, procedural
-from atray_tpu.scene.data import make_materials
-from atray_tpu.scene.transforms import translate
+from atray.render.wavefront import render
+from atray.scene import build_scene, procedural
+from atray.scene.data import make_materials
+from atray.scene.transforms import translate
 
 MATS = make_materials([
     ((0.35, 0.45, 0.65), (0.0, 0.0, 0.0), 0.0),
@@ -103,7 +103,7 @@ def test_treelet_render_matches_single_device(devices):
 def test_treelet_nee_matches_single_device(devices):
     # NEE shadow rays ride the second ring (ring_occlusion_t): the treelet
     # render with an emissive sphere light must match the replicated path
-    from atray_tpu.scene.data import Spheres
+    from atray.scene.data import Spheres
 
     mats = make_materials([
         ((0.2, 0.25, 0.35), (0.0, 0.0, 0.0), 0.0),
@@ -134,11 +134,11 @@ def test_treelet_nee_matches_single_device(devices):
 
 
 def test_treelet_accel_render_matches_replicated(devices):
-    # the PRODUCTION treelet backend: per-treelet wide-BVH tables sharded
-    # over the mesh, fused Pallas kernel per ring hop — must match the
-    # replicated fused render (same PRNG streams)
-    from atray_tpu.accel.shaded import build_shaded_accel
-    from atray_tpu.config import KDTreeConfig
+    # the PRODUCTION treelet backend: per-treelet BVHs sharded over the
+    # mesh, the per-ray hit kernel per ring hop — must match the
+    # replicated kernel render (same PRNG streams)
+    from atray.accel.bvh import build_bvh
+    from atray.config import KDTreeConfig
 
     scene = _scene(rows=14, cols=14)
     cam = look_at_camera((0, 0.4, 0.6), (0, 0, -4), h_fov=0.9, aspect=1.0)
@@ -148,7 +148,8 @@ def test_treelet_accel_render_matches_replicated(devices):
                               KDTreeConfig(leaf_size=8))
     film_tl = render_treelet(scene, cam, s, jax.random.PRNGKey(0), mesh,
                              treelets=ta)
-    accel = build_shaded_accel(scene, KDTreeConfig(leaf_size=8))
+    accel = build_bvh(scene.mesh.vertices, scene.mesh.faces,
+                      KDTreeConfig(leaf_size=8))
     film_lo = render(scene, cam, s, jax.random.PRNGKey(0), accel=accel)
     np.testing.assert_allclose(
         np.asarray(film_tl), np.asarray(film_lo), atol=1e-5
@@ -157,8 +158,8 @@ def test_treelet_accel_render_matches_replicated(devices):
 
 
 def test_treelet_accel_nee_matches_replicated(devices):
-    from atray_tpu.config import KDTreeConfig
-    from atray_tpu.scene.data import Spheres
+    from atray.config import KDTreeConfig
+    from atray.scene.data import Spheres
 
     mats = make_materials([
         ((0.2, 0.25, 0.35), (0.0, 0.0, 0.0), 0.0),
@@ -333,7 +334,7 @@ def test_treelet_shards_forward_matches_replicated(devices):
     # TreeletShards backend: record tables built INSIDE shard_map from
     # per-part vertex/normal slices (true sharded parameter residency)
     # must render the same image as the replicated single-device path
-    from atray_tpu.dist.treelet import build_treelet_shards
+    from atray.dist.treelet import build_treelet_shards
 
     scene = _scene(rows=8, cols=8)
     cam = look_at_camera((0, 0.4, 0.6), (0, 0, -4), h_fov=0.9, aspect=1.0)
@@ -360,7 +361,7 @@ def test_treelet_shards_grads_match_replicated(devices):
     # records: the only cross-device traffic is the ppermute rings.
     import dataclasses as _dc
 
-    from atray_tpu.dist.treelet import (
+    from atray.dist.treelet import (
         build_treelet_shards,
         merge_normal_grads,
         merge_vertex_grads,
